@@ -1,6 +1,7 @@
 """The reference's smoke driver, ported 1:1 (reference test.py:1-9).
 
-Run: python examples/demo.py   (any backend; forces CPU if no TPU)
+Run: python examples/demo.py   (any backend: the GPU when JAX finds one,
+else the CPU)
 """
 
 import os

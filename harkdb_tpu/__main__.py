@@ -4,7 +4,8 @@
         "select col1, max(col3) from game_1 group by col1"
 
 Flags: --table NAME=PATH (repeatable), --mesh (use all devices),
---explain, --profile DIR, --cpu (force CPU backend).
+--explain, --profile DIR, --cpu (run on the CPU instead of the default
+device; only ever chosen by the user).
 """
 
 from __future__ import annotations
@@ -22,17 +23,17 @@ def main(argv=None) -> int:
                     help="row-shard tables over all visible devices")
     ap.add_argument("--explain", action="store_true")
     ap.add_argument("--profile", metavar="DIR", default=None)
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the default device")
     args = ap.parse_args(argv)
 
+    import jax
+
     if args.cpu:
-        import os
-
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
         jax.config.update("jax_platforms", "cpu")
+    from harkdb_tpu.utils.compile_cache import use_compile_cache
 
+    use_compile_cache()
     from harkdb_tpu import Context
 
     mesh = None

@@ -110,7 +110,7 @@ class ColumnBatch:
 
 
 def align_capacity(n: int, align: int) -> int:
-    """Round n up to a multiple of `align` (min 1 unit) for clean TPU tiling."""
+    """Round n up to a multiple of `align` (min 1 unit) so nearby sizes share one jit shape."""
     if n <= 0:
         return align
     return ((n + align - 1) // align) * align

@@ -10,13 +10,16 @@ String columns (beyond the numeric-only reference) are **dictionary-encoded at
 ingest**: each string column becomes an int32 code column plus a host-side
 sorted dictionary of its distinct values. Codes are assigned in lexicographic
 order, so ``<``/``<=``/``>``/``>=``/ORDER BY/MIN/MAX on codes match string
-semantics exactly — the TPU only ever sees dense int32. Every loader returns
+semantics exactly — the device only ever sees dense int32. Every loader returns
 ``(columns, headers, dicts)`` where ``dicts`` maps column name → np.ndarray of
 strings (absent for numeric columns).
 
 A native C++ fast path for CSV exists in ``harkdb_tpu.io.native_csv`` and is
 used automatically for large all-numeric files when the shared library is
 built.
+
+pandas is optional: it is imported only where a caller hands in a DataFrame
+or reads a file the native loader cannot (CSV with strings, parquet).
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import pandas as pd
 
 from harkdb_tpu.config import EngineConfig, DEFAULT_CONFIG
 
@@ -72,7 +74,26 @@ def _normalize_col(
     return _normalize_dtype(a, config)
 
 
-def load_df(df: pd.DataFrame, config: EngineConfig) -> LoadResult:
+def _pandas():
+    try:
+        import pandas
+    except ImportError as e:
+        raise ImportError(
+            "pandas is required for this input (DataFrame, parquet, or a CSV "
+            "the native loader cannot read); install the 'pandas' extra"
+        ) from e
+    return pandas
+
+
+def _is_dataframe(source) -> bool:
+    """True for a pandas DataFrame, without importing pandas."""
+    return any(
+        c.__name__ == "DataFrame" and c.__module__.startswith("pandas")
+        for c in type(source).__mro__
+    )
+
+
+def load_df(df, config: EngineConfig) -> LoadResult:
     # Reference: table.py:8-10 (df.to_numpy(), list(df)).
     headers = [str(c) for c in df.columns]
     dicts: ColumnDicts = {}
@@ -107,7 +128,7 @@ def load_np(
 def load_csv(path: str, config: EngineConfig) -> LoadResult:
     # Reference: table.py:29-32 (pd.read_csv). Native C++ loader used when
     # available and beneficial (all-numeric files); falls back to pandas
-    # transparently (string columns dictionary-encode there).
+    # (string columns dictionary-encode there) when pandas is installed.
     try:
         from harkdb_tpu.io.native_csv import native_read_csv
 
@@ -117,7 +138,7 @@ def load_csv(path: str, config: EngineConfig) -> LoadResult:
             return cols, names, {}
     except Exception:
         pass
-    df = pd.read_csv(path, skipinitialspace=True)
+    df = _pandas().read_csv(path, skipinitialspace=True)
     return load_df(df, config)
 
 
@@ -140,7 +161,7 @@ def load_file(
     if path.endswith(".txt"):
         return load_txt(path, config, col_names)
     if path.endswith(".parquet"):
-        df = pd.read_parquet(path)
+        df = _pandas().read_parquet(path)
         return load_df(df, config)
     # Reference error contract: table.py:40.
     raise Exception("We do not support loading this file type")
@@ -149,7 +170,7 @@ def load_file(
 def load_table(source, config: EngineConfig = DEFAULT_CONFIG,
                col_names: Optional[List[str]] = None) -> LoadResult:
     """Dispatch on source type — DataFrame / ndarray / path (table.py:42-50)."""
-    if isinstance(source, pd.DataFrame):
+    if _is_dataframe(source):
         return load_df(source, config)
     if isinstance(source, np.ndarray):
         return load_np(source, config, col_names)

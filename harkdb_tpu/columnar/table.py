@@ -92,7 +92,7 @@ class Table:
 
     def column_range(self, name: str):
         """(min, max) of an integer column, cached — drives the planner's
-        MXU matmul-aggregation gate. None for float/empty columns."""
+        dense-key aggregation gate. None for float/empty columns."""
         if not hasattr(self, "_ranges"):
             self._ranges = {}
         if name not in self._ranges:

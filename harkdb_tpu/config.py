@@ -3,7 +3,7 @@
 The reference has no config surface at all (no CLI, no env vars — SURVEY §5;
 its only knob is the Futhark compile target hardcoded in ``setup.sh:12``).
 Here a small dataclass carries every tunable: dtype policy, capacity bucketing
-for static-shape outputs, kernel tile sizes, mesh shape, and skew handling.
+for static-shape outputs, mesh shape, and skew handling.
 Env-var overrides (``HARKDB_*``) exist for benchmark sweeps.
 """
 
@@ -18,8 +18,6 @@ def _env(name: str, cast, default):
     raw = os.environ.get(f"HARKDB_{name}")
     if raw is None:
         return default
-    if cast is bool:
-        return raw.lower() in ("1", "true", "yes", "on")
     return cast(raw)
 
 
@@ -34,9 +32,10 @@ class EngineConfig:
     float_dtype: str = "float32"
 
     # ---- static-shape management -------------------------------------------
-    # Row counts are padded up to a multiple of `row_align` so blocks tile
-    # cleanly onto (8,128) VPU lanes. Data-dependent output sizes (join) are
-    # bucketed to powers of two to bound the jit cache.
+    # Row counts are padded up to a multiple of `row_align` so tables of
+    # nearby sizes share one static shape, which bounds the jit cache.
+    # Data-dependent output sizes (join) are bucketed to powers of two for
+    # the same reason.
     row_align: int = 1024
     # After a filter-pushdown compaction on a single-table query, slice the
     # working capacity down to the live row count (power-of-two bucket)
@@ -45,12 +44,6 @@ class EngineConfig:
     # sort time for one n_valid host readback). Engaged only at or above
     # this capacity so small queries skip the sync.
     shrink_rows_min: int = 1 << 22
-
-    # ---- kernel selection ----------------------------------------------------
-    # Enable the Pallas kernels (MXU one-hot aggregation, streaming
-    # compaction) where the planner proves applicability; pure-XLA paths
-    # otherwise/when False.
-    use_pallas: bool = True
 
     # ---- distribution -------------------------------------------------------
     # Mesh axis name for data (row) partitioning; single axis "shards".
@@ -96,7 +89,6 @@ class EngineConfig:
             int_dtype=_env("INT_DTYPE", str, base.int_dtype),
             float_dtype=_env("FLOAT_DTYPE", str, base.float_dtype),
             row_align=_env("ROW_ALIGN", int, base.row_align),
-            use_pallas=_env("USE_PALLAS", bool, base.use_pallas),
             num_shards=_env("NUM_SHARDS", int, base.num_shards),
             log_level=_env("LOG_LEVEL", str, base.log_level),
         )

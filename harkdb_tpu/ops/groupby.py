@@ -9,10 +9,9 @@ negatives. ``u32_key_order=True`` / ``EngineConfig.compat_u32_key_order``
 reproduces the reference's u32 order exactly; tests/test_parity.py pins both
 orders.)
 
-TPU-first, scatter-free algorithm, shaped by v5e microbenchmarks (a random
-scatter/gather at 16M rows costs ~145 ms — and a `jax.ops.segment_*` over 16M
-segments ~1.8 s — while a stable sort carrying six payload operands costs
-~40 ms and a cumsum ~10 ms):
+Sort-based algorithm for any key type and span (small int key spans take
+the dense scatter-add path instead, ``ops/dense_agg.py``). Its costs on the
+H100 are not measured yet:
 
   1. ONE stable ``lax.sort`` on (dropped-mask, keys...) carrying every
      aggregate input column as payload — no per-column permutation gathers;
@@ -23,11 +22,11 @@ segments ~1.8 s — while a stable sort carrying six payload operands costs
      counts via global ``cumsum`` + telescoping differences at segment ends
      (exact under two's-complement wraparound); float sums and max/min/prod
      via a log-doubling segmented scan (``prims.segmented``) — no scatter;
-  4. ONE shared stable compaction sort packs every segment-end row (keys +
-     all scan results + row position) to the front in key order.
+  4. ONE shared compaction (``prims/compaction.py``) packs every segment-end
+     row (keys + all scan results + row position) to the front in key order.
 
-Total: two payload-carrying sorts + a few elementwise scan passes, regardless
-of the number of aggregate columns. The reference instead runs 32 sequential
+Total: one payload-carrying sort, one compaction and a few elementwise scan
+passes, regardless of the number of aggregate columns. The reference instead runs 32 sequential
 single-bit radix passes (``groupby.fut:22``) and one segmented reduce per
 column.
 """
@@ -82,31 +81,6 @@ def _neutral_py(op_name: str, dtype):
     raise ValueError(f"Unknown aggregate {op_name!r}")
 
 
-_SEGSCAN_NAME = {"sum": "add", "prod": "mul", "max": "max", "min": "min"}
-_FORCE_SEGSCAN: bool | None = None     # test hook: force the kernel path
-
-
-def _use_segscan(use_pallas) -> bool:
-    if _FORCE_SEGSCAN is not None:
-        return _FORCE_SEGSCAN
-    import os
-
-    # Dedicated off-switch (finer than HARKDB_USE_PALLAS, which would also
-    # disable the proven compaction/expand/MXU kernels): the streaming
-    # segscan is the newest kernel and compiles slowest on the remote
-    # service — this keeps a one-env-var escape hatch if its compile
-    # becomes a liability in a given environment.
-    if os.environ.get("HARKDB_USE_SEGSCAN", "1").lower() in (
-        "0", "false", "no", "off"
-    ):
-        return False
-    if use_pallas is None:
-        from harkdb_tpu.config import DEFAULT_CONFIG
-
-        use_pallas = DEFAULT_CONFIG.use_pallas
-    return bool(use_pallas) and jax.default_backend() == "tpu"
-
-
 def u32_order_key(key: Array) -> Array:
     """Order-preserving signed view of an int key's u32 bit pattern.
 
@@ -126,7 +100,6 @@ def groupby_aggregate(
     n_valid: Array,
     mask: Optional[Array] = None,
     u32_key_order: bool = False,
-    use_pallas: Optional[bool] = None,
 ) -> Tuple[List[Array], List[Array], Array]:
     """Aggregate ``agg_cols`` (value, op-name) per distinct key tuple.
 
@@ -224,26 +197,10 @@ def groupby_aggregate(
     sid = jnp.cumsum(is_start.astype(jnp.int32)) - 1
     for (op, dt), members in scan_groups.items():
         member_cols = [c for _ai, c in members]
-        # Streaming Pallas segmented scan on TPU (kernels/segscan.py):
-        # ONE pass of HBM traffic with a carry chain vs the doubling scan's
-        # 24 whole-array rounds at 16M rows. Fallback elsewhere.
-        from harkdb_tpu.kernels.segscan import (
-            flat_segscan, segscan_supported,
+        D = doubling_segmented_scan(
+            _SCAN_OP[op], sid, jnp.stack(member_cols, axis=1)
         )
-
-        if _use_segscan(use_pallas) and segscan_supported(
-            _SEGSCAN_NAME[op], member_cols[0].dtype
-        ):
-            scanned = flat_segscan(
-                _SEGSCAN_NAME[op], sid, member_cols,
-                _neutral_py(op, member_cols[0].dtype),
-                interpret=jax.default_backend() != "tpu",
-            )
-        else:
-            D = doubling_segmented_scan(
-                _SCAN_OP[op], sid, jnp.stack(member_cols, axis=1)
-            )
-            scanned = [D[:, j] for j in range(len(members))]
+        scanned = [D[:, j] for j in range(len(members))]
         for (ai, _c), col_scan in zip(members, scanned):
             slot_of[ai] = len(end_arrays)
             end_arrays.append(col_scan)
@@ -333,19 +290,7 @@ def groupby_aggregate(
             valid, jnp.cumsum(is_start.astype(jnp.int32)) - 1,
             jnp.int32(1 << 30),
         )
-        from harkdb_tpu.kernels.segscan import (
-            flat_segscan, segscan_supported,
-        )
-
-        if _use_segscan(use_pallas) and segscan_supported(
-            "add", z.dtype
-        ):
-            scanned = flat_segscan(
-                "add", sid_q, [z], 0.0,
-                interpret=jax.default_backend() != "tpu",
-            )[0]
-        else:
-            scanned = doubling_segmented_scan(jnp.add, sid_q, z)
+        scanned = doubling_segmented_scan(jnp.add, sid_q, z)
         slot_of[ai] = len(end_arrays)
         end_arrays.append(scanned)
 
@@ -355,14 +300,11 @@ def groupby_aggregate(
         end_arrays.append(idx)
 
     # ONE shared compaction: pack segment-end rows (keys + every scan result)
-    # to the front, in key order. On TPU this is the log-shift streaming
-    # kernel (prims/compaction.py compact_arrays, ~3 ms at 16M rows);
-    # fallback is a stable sort on the inverted end flag.
+    # to the front, in key order (prims/compaction.py).
     from harkdb_tpu.prims.compaction import compact_arrays
 
     packed, _cnt = compact_arrays(
-        sorted_keys + end_arrays, is_end, jnp.int32(n),
-        use_pallas=use_pallas,
+        sorted_keys + end_arrays, is_end, jnp.int32(n)
     )
     packed_keys = packed[:nk]
     packed_vals = packed[nk:]
@@ -417,7 +359,6 @@ def groupby_batch(
     aggs: Sequence[Tuple[str, str, str]],
     mask: Optional[Array] = None,
     u32_key_order: bool = False,
-    use_pallas: Optional[bool] = None,
 ) -> ColumnBatch:
     """GROUP BY over a batch. ``aggs`` = (source column, op, output name).
 
@@ -437,7 +378,7 @@ def groupby_batch(
     ]
     keys_out, agg_outs, n_groups = groupby_aggregate(
         key_arrays, agg_inputs, batch.n_valid, mask=mask,
-        u32_key_order=u32_key_order, use_pallas=use_pallas,
+        u32_key_order=u32_key_order,
     )
     cols = dict(zip(key_names, keys_out))
     for (_, _, out_name), arr in zip(aggs, agg_outs):

@@ -6,34 +6,23 @@ right row in original order; output columns = [left cols | right cols]
 (``join.fut:74-75``). Keys present on one side only emit nothing (inner join);
 LEFT JOIN keeps unmatched left rows with zero-filled right columns.
 
-TPU-first algorithm, shaped by v5e microbenchmarks: ``searchsorted`` is
-catastrophic on TPU (binary search = a chain of dependent gathers; 3 s for a
-16M probe into 1M keys, vs ~40 ms for a payload-carrying sort), and every
-random 16M-row gather costs ~145 ms. The design therefore does ONE concat
-sort and minimizes gathers:
+The design does ONE concat sort and keeps gathers few:
 
   1. **Ranges** (:func:`compute_join_ranges`): both sides concatenated and
      sorted ONCE by (key, side) with side ordering rights before lefts
      within each key run — the reference's tag-and-sort idea
      (``join.fut:55-58``) vectorized. Per sorted-left row, the match count
      is a cumsum difference and the match start ``lo`` a cummax-filled run
-     base. Output columns ride the same sort as payload (extra sort
-     operands are nearly free), and the sorted-left / sorted-right splits
-     are stable compactions — the log-shift Pallas kernel on TPU (~3 ms
-     each vs ~60-90 ms sort fallback). Both join totals (inner and left)
-     come out of this single pass — the planner's count phase reuses the
-     SAME device arrays for materialization instead of recomputing
+     base. Output columns ride the same sort as payload, and the
+     sorted-left / sorted-right splits are stable compactions
+     (``prims/compaction.py``). Both join totals (inner and left) come out
+     of this single pass — the planner's count phase reuses the SAME device
+     arrays for materialization instead of recomputing
      (count-then-materialize without the double work).
   2. **Materialization** (:func:`join_batches` / :func:`join_indices`):
-     pair expansion via the log-shift expand kernel on TPU
-     (``kernels/expand.py``) — empty segments pre-compacted, then seg ids
-     AND the per-segment ``offsets`` / ``lo`` / match-end values stream out
-     as monotone max-fills, so the left gather carries ONLY genuinely
-     non-monotone columns (row ids, payload). Gathers cost ~105 ms per
-     16M-row column on v5e (they scale with BYTES, not indices — measured,
-     tools/join_profile.py) and the scatter-based expansion costs 160 ms,
-     so the kernel path saves ~390 ms per 16M-pair join vs the XLA
-     formulation (which remains the non-TPU fallback).
+     pair expansion by ``replicated_iota`` (a sorted scatter of segment
+     markers + a running max), then ONE stacked gather of the left columns
+     together with each segment's match count and start.
 
 No sequential per-key loop (the reference's biggest algorithmic weakness,
 ``join.fut:67-68``) and no binary search. Static shapes: materialization
@@ -82,11 +71,10 @@ class JoinRanges(NamedTuple):
 def compute_join_ranges(
     l_key, n_l: Array, r_key, n_r: Array,
     l_cols: Sequence[Array] = (), r_cols: Sequence[Array] = (),
-    use_pallas: bool | None = None,
     l_null: Array | None = None, r_null: Array | None = None,
     need_full: bool = False,
 ) -> JoinRanges:
-    """One concat sort + two kernel compactions → everything a join needs.
+    """One concat sort + two compactions → everything a join needs.
 
     ``l_key``/``r_key`` may be single arrays or LISTS of equal-length key
     arrays (multi-key equi-join: rows match when every key is equal —
@@ -111,10 +99,9 @@ def compute_join_ranges(
     # Pads → dtype max so they cluster at the back. Rights are concatenated
     # BEFORE lefts, so the stable key-only sort orders rights before lefts
     # within every key run — the explicit `side` operand of the naive
-    # formulation rides for free in the concat order (measured: dropping the
-    # operand takes the 17M-row sort from 91 ms to 70 ms on v5e,
-    # tools/join_profile.py). Side/pad flags travel as 2 tag bits on the
-    # carried row index (capacities are < 2^30).
+    # formulation rides for free in the concat order, one sort operand
+    # fewer. Side/pad flags travel as 2 tag bits on the carried row index
+    # (capacities are < 2^30).
     l_idx = jnp.arange(nl, dtype=jnp.int32)
     r_idx = jnp.arange(nr, dtype=jnp.int32)
     keys = [
@@ -166,7 +153,7 @@ def compute_join_ranges(
     r_cum = jnp.cumsum(is_right)                       # inclusive rights so far
     # Base = rights before this run = r_excl at my run's start. r_excl is
     # non-decreasing, so a running max over values marked at run starts
-    # forward-fills it — no scatter, no gather (each ~145 ms at 16M rows).
+    # forward-fills it — no scatter, no gather.
     r_excl = r_cum - is_right
     base = jax.lax.cummax(jnp.where(run_start, r_excl, 0))
     rights_in_run_so_far = r_cum - base                # incl. me if right
@@ -214,15 +201,12 @@ def compute_join_ranges(
         )
         total_full = total_left + n_r_unmatched
 
-    # Stable compactions back to per-side coordinates (log-shift kernel on
-    # TPU, payload-carrying sort elsewhere). Kernel-path rows past the live
-    # count are unspecified: counts drives expansion sizes downstream, so
-    # zero its tail.
+    # Stable compactions back to per-side coordinates. counts drives
+    # expansion sizes downstream, so its tail past the live count is 0.
     nn = jnp.int32(n)
     nlc = len(l_cols)
     l_split, n_lefts = compact_arrays(
         [sorig, counts_sorted, base] + list(spay[:nlc]), is_left, nn,
-        use_pallas=use_pallas,
     )
     l_orig, cl, lo = (a[:nl] for a in l_split[:3])
     counts = jnp.where(l_idx < n_lefts, cl, 0)
@@ -233,7 +217,6 @@ def compute_join_ranges(
     )
     r_split, n_rights = compact_arrays(
         [sorig] + r_extra + list(spay[nlc:]), is_right > 0, nn,
-        use_pallas=use_pallas,
     )
     r_orig = r_split[0][:nr]
     if need_full:
@@ -253,7 +236,6 @@ def compute_join_ranges(
 
 def join_match_count(
     l_key, n_l: Array, r_key, n_r: Array, kind: str = "inner",
-    use_pallas: bool | None = None,
     l_null: Array | None = None, r_null: Array | None = None,
 ) -> Array:
     """Exact number of output rows (device scalar) — the count phase.
@@ -263,7 +245,7 @@ def join_match_count(
     counts unmatched right rows.
     """
     rng = compute_join_ranges(
-        l_key, n_l, r_key, n_r, use_pallas=use_pallas,
+        l_key, n_l, r_key, n_r,
         l_null=l_null, r_null=r_null,
         need_full=kind == "full",
     )
@@ -277,10 +259,9 @@ def join_match_count(
 def _stacked_gather(arrays: Sequence[Array], idx: Array,
                     indices_are_sorted: bool = False):
     """Gather k same-length columns by ONE index array: every column is
-    bitcast to int32 and stacked into one gather. NOTE: measured on v5e the
-    cost scales with BYTES (~105 ms per 16M-row column; ``indices_are_sorted``
-    gains nothing), so callers should keep k minimal — the stacking only
-    saves per-gather fixed overhead, not per-column traffic."""
+    bitcast to int32 and stacked into one gather. The stacking saves
+    per-gather fixed overhead, not per-column traffic, so callers keep k
+    minimal."""
     arrays = list(arrays)
     if not arrays:
         return []
@@ -303,38 +284,18 @@ def _stacked_gather(arrays: Sequence[Array], idx: Array,
     return out
 
 
-_FORCE_KERNEL_EXPAND: bool | None = None   # test hook: force the kernel path
-
-
-def _use_kernel_expand(use_pallas: bool | None) -> bool:
-    if _FORCE_KERNEL_EXPAND is not None:
-        return _FORCE_KERNEL_EXPAND
-    if use_pallas is None:
-        from harkdb_tpu.config import DEFAULT_CONFIG
-
-        use_pallas = DEFAULT_CONFIG.use_pallas
-    return bool(use_pallas) and jax.default_backend() == "tpu"
-
-
 def _pair_slots(
     rng: JoinRanges, out_capacity: int, kind: str,
-    l_value_cols: Sequence[Array], use_pallas: bool | None = None,
+    l_value_cols: Sequence[Array],
 ):
-    """Pair expansion + the left-side value gather, fused path-dependently.
+    """Pair expansion + the left-side value gather.
 
     Returns ``(l_vals, r_pos, live, matched, total)`` per output slot:
     the gathered ``l_value_cols`` (arrays in sorted-left coordinates), the
     matching sorted-right position (0 where unmatched), and flags.
+    Expansion is scatter+cummax ``replicated_iota``; one stacked gather
+    carries each segment's counts/lo alongside the values.
 
-    TPU path: empty-emit sources are pre-compacted (log-shift kernel), then
-    the expand kernel (``kernels/expand.py``) produces seg ids AND the
-    per-segment ``offsets`` / ``lo`` / match-end fills in one streaming pass
-    — all three are non-decreasing in sorted-left order (lo is a run base,
-    match end telescopes across runs), which is what the kernel's max-fill
-    needs. That removes both the 160 ms marker scatter and two columns from
-    the left gather (gathers cost ~105 ms per 16M-row column — measured,
-    tools/join_profile.py). Fallback: scatter+cummax ``replicated_iota`` and
-    a stacked gather that carries counts/lo alongside the values.
     """
     counts, n_lefts = rng.counts, rng.n_lefts
     nl = counts.shape[0]
@@ -350,33 +311,6 @@ def _pair_slots(
     else:
         raise ValueError(f"Unsupported join kind {kind!r}")
     out_idx = jnp.arange(out_capacity, dtype=jnp.int32)
-
-    if _use_kernel_expand(use_pallas):
-        from harkdb_tpu.kernels.expand import expand_fills
-
-        packed, n_src = compact_arrays(
-            [emit, rng.lo, counts] + list(l_value_cols), emit > 0,
-            jnp.int32(nl), use_pallas=use_pallas,
-        )
-        p_emit = jnp.where(l_idx < n_src, packed[0], 0)
-        p_lo, p_counts = packed[1], packed[2]
-        p_vals = list(packed[3:])
-        offsets = jnp.cumsum(p_emit) - p_emit
-        rend = p_lo + p_counts            # first sorted-right slot past the
-        #                                   segment's matches — monotone
-        interpret = jax.default_backend() != "tpu"
-        seg, off_f, fills = expand_fills(
-            offsets, n_src, out_capacity, (p_lo, rend),
-            interpret=interpret,
-        )
-        lo_f, rend_f = fills
-        live = out_idx < total
-        r_pos_raw = lo_f + (out_idx - off_f)
-        matched = live & (r_pos_raw < rend_f)
-        r_pos = jnp.where(matched, r_pos_raw, 0)
-        safe_seg = jnp.where(live, jnp.minimum(seg, nl - 1), 0)
-        l_vals = _stacked_gather(p_vals, safe_seg) if p_vals else []
-        return l_vals, r_pos, live, matched, total
 
     seg_ids, _ = replicated_iota(emit, out_capacity)
     live = out_idx < total
@@ -402,7 +336,6 @@ def join_indices(
     n_r: Array,
     out_capacity: int,
     kind: str = "inner",
-    use_pallas: bool | None = None,
 ) -> Tuple[Array, Array, Array, Array]:
     """Materialize pair indices ``(l_idx, r_idx, matched, total)`` padded to
     capacity.
@@ -415,9 +348,9 @@ def join_indices(
     truncated — the planner prevents this by sizing capacity from
     :func:`join_match_count`.
     """
-    rng = compute_join_ranges(l_key, n_l, r_key, n_r, use_pallas=use_pallas)
+    rng = compute_join_ranges(l_key, n_l, r_key, n_r)
     l_vals, r_pos, live, matched, total = _pair_slots(
-        rng, out_capacity, kind, [rng.l_orig], use_pallas
+        rng, out_capacity, kind, [rng.l_orig]
     )
     l_out = jnp.where(live, l_vals[0], 0)
     (r_out,) = _stacked_gather(
@@ -447,7 +380,6 @@ def join_batches(
     r_out: Dict[str, str] | None = None,
     kind: str = "inner",
     ranges: JoinRanges | None = None,
-    use_pallas: bool | None = None,
     matched_out: str | None = None,
     l_matched_out: str | None = None,
     l_null: Array | None = None,
@@ -488,7 +420,6 @@ def join_batches(
             [right.column(k) for k in r_keys], right.n_valid,
             l_cols=[left.column(s) for s in l_out],
             r_cols=[right.column(s) for s in r_out],
-            use_pallas=use_pallas,
             l_null=l_null, r_null=r_null,
             need_full=kind == "full",
         )
@@ -499,7 +430,7 @@ def join_batches(
             "defined by them)"
         )
     l_vals, r_pos, live, matched, total = _pair_slots(
-        ranges, out_capacity, kind, list(ranges.l_payload), use_pallas
+        ranges, out_capacity, kind, list(ranges.l_payload)
     )
     nr = ranges.r_orig.shape[0]
     r_gathered = _stacked_gather(
@@ -517,8 +448,8 @@ def join_batches(
 
     if kind == "full":
         # Append the unmatched right rows after the left-preserving part:
-        # compact them (log-shift kernel on TPU), then blend by output
-        # position — the appended block starts at the left part's total.
+        # compact them, then blend by output position — the appended block
+        # starts at the left part's total.
         if ranges.r_matched is None:
             raise ValueError(
                 "FULL OUTER join requires ranges computed with "
@@ -527,7 +458,6 @@ def join_batches(
         um = jnp.logical_not(ranges.r_matched)
         packed, n_um = compact_arrays(
             list(ranges.r_payload), um, jnp.int32(nr),
-            use_pallas=use_pallas,
         )
         total_full = ranges.total_full
         out_idx = jnp.arange(out_capacity, dtype=jnp.int32)

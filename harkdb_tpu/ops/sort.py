@@ -3,10 +3,9 @@
 The reference has no user-facing SORT BY at all — its radix sort exists only as
 an internal groupby/join step (32 sequential single-bit passes,
 ``groupby.fut:8-22``, ``join.fut:9-23``). Here sorting is a first-class
-operator built on ``jax.lax.sort``, which XLA lowers to an optimized on-device
-sort (measured ~40-50 ms for 16M rows x 2-6 operands on v5e — extra payload
-operands ride nearly free, which is what the engine's sort-carry design
-exploits).
+operator built on ``jax.lax.sort``, which XLA lowers to an on-device sort.
+The engine's sort-carry design assumes extra payload operands are cheaper
+than per-column permutation gathers; not measured on the H100.
 
 Engine conventions honored:
   * padded batches — padding rows always sort to the back, regardless of the
@@ -90,8 +89,7 @@ def sort_batch(
     """ORDER BY: reorder all columns by the sort keys.
 
     One stable ``lax.sort`` with every column carried as payload — no
-    per-column permutation gathers (a 16M-row gather costs ~3x a whole
-    payload-carrying sort on v5e; see ops/groupby.py). ``key_arrays``
+    per-column permutation gathers. ``key_arrays``
     optionally supplies precomputed key columns (ORDER BY expressions) in
     place of ``key_names`` lookups. ``mask`` fuses a row filter (WHERE /
     HAVING predicate) into this same sort: dropped rows ride to the back as

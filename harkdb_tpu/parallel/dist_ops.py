@@ -5,8 +5,8 @@ single-chip operators (``harkdb_tpu.ops``) — the distributed layer composes,
 it does not reimplement. Overflow-retry loops double shuffle bucket capacity
 (powers of two, bounded jit cache) when a hash bucket exceeds its static size.
 
-Collective footprint per operator (all over the mesh axis, ICI on real
-hardware): group-by = 1 all_to_all (+1 psum for overflow) after local
+Collective footprint per operator (all over the mesh axis, NVLink between
+the GPUs of one host): group-by = 1 all_to_all (+1 psum for overflow) after local
 pre-aggregation; join = 2 all_to_all (both sides repartitioned) + local
 build/probe; filter = none (embarrassingly row-parallel).
 """
@@ -21,6 +21,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from harkdb_tpu.columnar.batch import ColumnBatch
 from harkdb_tpu.config import EngineConfig, DEFAULT_CONFIG
+from harkdb_tpu.ops.dense_agg import dense_groupby_batch
 from harkdb_tpu.ops.groupby import groupby_batch
 from harkdb_tpu.ops.join import join_batches, join_match_count
 from harkdb_tpu.ops.sort import sort_batch
@@ -188,7 +189,7 @@ def dist_groupby(
     partials re-aggregate exactly), the shuffle routes on the REAL keys'
     hash, and the final aggregate computes the exact distinct count.
 
-    ``fast`` = ``(key_min, span)`` engages the MXU one-hot aggregation for
+    ``fast`` = ``(key_min, span)`` engages the dense-key aggregation for
     the local pre-aggregate (single int key with a planner-proven small
     span, sum/count only — the same gate as the single-chip fast path).
     """
@@ -231,11 +232,9 @@ def dist_groupby(
 
             specs_in = ({n: P(axis) for n in sb.names}, P(axis))
             specs_out = ({n: P(axis) for n in out_names_q}, P(axis), P())
-            # check_vma off: the quantile scan may engage the segscan
-            # kernel (no vma annotations on its ShapeDtypeStructs)
             return jax.jit(jax.shard_map(
                 body, mesh=mesh, in_specs=specs_in, out_specs=specs_out,
-                check_vma=False,
+                check_vma=True,
             ))
 
         bucket_cap = _start_bucket(sb, D)
@@ -284,32 +283,15 @@ def dist_groupby(
     use_fast = fast is not None and not countd_srcs and len(key_names) == 1
     if use_fast:
         key_min, span = fast
-        sum_srcs = list(dict.fromkeys(
-            src for src, op, _ in agg_specs if op == "sum"
-        ))
 
     def local_pre(cols: Dict[str, Array], n_local: Array) -> ColumnBatch:
-        """Per-shard pre-aggregation: MXU one-hot path when gated, else the
-        general sort path (ops/groupby.py)."""
+        """Per-shard pre-aggregation: the dense-key path when gated, else
+        the general sort path (ops/groupby.py)."""
         if use_fast:
-            from harkdb_tpu.kernels.matmul_agg import onehot_groupby_sums
-
-            key_name = key_names[0]
-            counts_k, sums_k, keys_axis = onehot_groupby_sums(
-                cols[key_name], [cols[s] for s in sum_srcs], n_local,
-                jnp.int32(key_min), span,
-                interpret=jax.default_backend() != "tpu",
+            return dense_groupby_batch(
+                cols, key_names[0], agg_specs, n_local, jnp.int32(key_min),
+                span,
             )
-            sums_by_src = dict(zip(sum_srcs, sums_k))
-            gcols = {key_name: keys_axis}
-            for src, op, out_name in agg_specs:
-                gcols[out_name] = (
-                    counts_k if op == "count" else sums_by_src[src]
-                )
-            dense = ColumnBatch(gcols, jnp.int32(span))
-            from harkdb_tpu.prims.compaction import compact_batch
-
-            return compact_batch(dense, counts_k > 0, config.use_pallas)
         return groupby_batch(ColumnBatch(cols, n_local), pre_keys, pre_specs)
 
     def shuffle_final(pcols, pcount, bucket_cap: int):
@@ -355,11 +337,8 @@ def dist_groupby(
 
         specs_in = ({n: P(axis) for n in sb.names}, P(axis))
         specs_out = ({n: P(axis) for n in out_names}, P(axis), P())
-        # pallas_call emits ShapeDtypeStructs without vma annotations, which
-        # shard_map's vma checker rejects — disable it on the MXU path.
         return jax.jit(jax.shard_map(body, mesh=mesh, in_specs=specs_in,
-                                     out_specs=specs_out,
-                                     check_vma=not use_fast))
+                                     out_specs=specs_out, check_vma=True))
 
     spec_key = (tuple(key_names), tuple(map(repr, agg_specs)), use_fast,
                 fast)
@@ -390,7 +369,7 @@ def dist_groupby(
             specs_out = ({n: P(axis) for n in pnames}, P(axis))
             return jax.jit(jax.shard_map(
                 body, mesh=mesh, in_specs=specs_in, out_specs=specs_out,
-                check_vma=not use_fast,
+                check_vma=True,
             ))
 
         fp = _cached_jit(
@@ -504,11 +483,8 @@ def dist_window(
         ]
         specs_in = ({n: P(axis) for n in sb.names}, P(axis))
         specs_out = ({n: P(axis) for n in out_names}, P(axis), P())
-        # check_vma off: the window scans may engage the Pallas segscan
-        # kernel, whose ShapeDtypeStructs carry no vma annotations (same
-        # situation as dist_groupby's MXU path).
         return jax.jit(jax.shard_map(body, mesh=mesh, in_specs=specs_in,
-                                     out_specs=specs_out, check_vma=False))
+                                     out_specs=specs_out, check_vma=True))
 
     bucket_cap = _start_bucket(sb, D)
     while True:
@@ -862,7 +838,6 @@ def dist_join(
 
             rngs = compute_join_ranges(
                 lkc, ln, rkc, rn,
-                use_pallas=config.use_pallas,
                 l_null=_l_null(ls), r_null=_r_null(rs),
                 need_full=kind == "full",
             )
@@ -953,7 +928,7 @@ def dist_join(
             out_cap,
             {n: n for n in l_names},
             {n: n for n in r_names if n not in l_names},
-            kind=kind, use_pallas=config.use_pallas,
+            kind=kind,
             matched_out=matched_out, l_matched_out=l_matched_out,
             l_null=_l_null(l_cols), r_null=_r_null(r_cols),
         )

@@ -264,8 +264,8 @@ class DistExecutor:
                     extra["#const"] = jnp.zeros((cap,), jnp.int32)
                 return extra
 
-            # MXU fast path distributed: the planner's gate (single
-            # small-span int key, sum/count only) engages the one-hot matmul
+            # Dense-key path distributed: the planner's gate (single
+            # small-span int key, sum/count only) engages the scatter-add
             # aggregation in every shard's local pre-aggregate; partials
             # shuffle as usual. The span is either statically proven from
             # no-join table stats (plan.fast_agg) or measured by a one-time
@@ -424,8 +424,7 @@ class DistExecutor:
         cached = getattr(plan, "_probed_fast_dist", None)
         if cached is not None:
             return cached if cached != () else None
-        from harkdb_tpu.kernels.matmul_agg import MAX_KEY_SPAN
-        from harkdb_tpu.plan.planner import _pad_span
+        from harkdb_tpu.ops.dense_agg import MAX_KEY_SPAN
 
         import jax
         import jax.numpy as jnp
@@ -458,7 +457,7 @@ class DistExecutor:
             if not (cfg.compat_u32_key_order and kmin < 0):
                 span = kmax - kmin + 1
                 if span <= MAX_KEY_SPAN:
-                    fast = (kmin, _pad_span(span))
+                    fast = (kmin, span)
         plan._probed_fast_dist = fast if fast is not None else ()
         return fast
 

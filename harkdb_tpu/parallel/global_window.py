@@ -4,8 +4,8 @@ verdict item 3.
 ``dist_window`` handles a global window by routing every row to shard 0
 (nothing to hash on), which funnels the whole table through one device.
 But a global running SUM/COUNT/rank IS parallelizable — it is the
-distributed analog of the segscan kernel's carry chain
-(``kernels/segscan.py``), lifted one level:
+distributed analog of a sequential scan's carry chain, lifted one
+level:
 
   1. ``dist_orderby`` puts rows in the window's global order (ORDER BY
      keys, tie-broken by the hidden row ids exactly like the single-chip

@@ -3,9 +3,10 @@
 The reference is strictly single-device (one ``Futhark(_main)`` context,
 ``FutharkContext.py:41``; no collectives anywhere — SURVEY §2 parallelism
 table). Scaling here is mesh-native: a 1-D ``jax.sharding.Mesh`` over all
-chips with axis ``"shards"``; tables are row-sharded over it and operators
+devices with axis ``"shards"``; tables are row-sharded over it and operators
 run under ``jax.shard_map`` with XLA collectives (``all_to_all`` for the
-hash shuffle, ``psum``/``all_gather`` for merges) riding ICI.
+hash shuffle, ``psum``/``all_gather`` for merges). The 1-D axis assumes no
+topology: on one host the GPUs are joined all to all by NVLink.
 """
 
 from __future__ import annotations

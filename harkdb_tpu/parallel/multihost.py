@@ -3,8 +3,9 @@
 The reference has no networking at all. Here multi-host runs use
 ``jax.distributed.initialize`` — after it, ``jax.devices()`` spans every
 host's chips, ``make_engine_mesh()`` builds a global mesh, and the engine's
-``all_to_all``/``psum`` collectives compile over ICI within a slice and DCN
-across hosts, with no operator code changes (operators only see the mesh).
+``all_to_all``/``psum`` collectives compile over NVLink within a host and
+the network between hosts, with no operator code changes (operators only
+see the mesh).
 
 CI-testable without a pod via multi-process CPU JAX: each process forces the
 CPU platform and joins the same coordinator (tests/test_multihost.py spawns
@@ -116,7 +117,6 @@ def worker_sql(coordinator: str, num_processes: int, process_id: int) -> str:
     must match a locally-computed single-device answer bit for bit.
     """
     import numpy as np
-    import pandas as pd
 
     from harkdb_tpu import Context, EngineConfig
     from harkdb_tpu.parallel.mesh import make_engine_mesh
@@ -128,14 +128,14 @@ def worker_sql(coordinator: str, num_processes: int, process_id: int) -> str:
 
     rng = np.random.default_rng(0)                # same data everywhere
     n = 500
-    facts = pd.DataFrame({
+    facts = {
         "k": rng.integers(0, 9, n).astype(np.int32),
         "v": rng.integers(-50, 50, n).astype(np.int32),
-    })
-    dims = pd.DataFrame({
+    }
+    dims = {
         "j": np.arange(9, dtype=np.int32),
         "m": rng.integers(1, 5, 9).astype(np.int32),
-    })
+    }
     q = ("select k, sum(v), max(m), count(*) from facts "
          "join dims on facts.k = dims.j "
          "where v > -40 group by k having count(*) > 1 order by k")

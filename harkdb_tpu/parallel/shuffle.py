@@ -2,7 +2,7 @@
 
 Everything here runs INSIDE ``jax.shard_map`` on per-device local blocks.
 The exchange is a single XLA ``all_to_all`` per column over the mesh axis
-(ICI-ridden on a real slice), replacing the reference's... nothing — the
+(NVLink between the GPUs of one host), replacing the reference's... nothing — the
 reference has no distributed layer at all (SURVEY §5); this is the mechanism
 BASELINE.json's north star mandates ("distributed shuffle for joins and
 aggregates using all-to-all").

@@ -9,7 +9,7 @@ cached, the same contract subqueries rely on). String outputs carry their
 dictionaries through, so LIKE / comparisons / joins on derived string
 columns work unchanged.
 
-Limits (documented in README): the MXU fast-path gate stays off for
+Limits (documented in README): the dense-key path's static gate stays off for
 derived columns (no host stats), hidden LEFT-JOIN NULL flags do not
 propagate OUT of a derived table (unmatched rows surface as the 0-fill),
 and in distributed contexts the inner query executes through the full
@@ -61,7 +61,7 @@ class DerivedSource:
         return self.plan.output_dicts[i]
 
     def column_range(self, _name: str):
-        return None                     # no host stats → no MXU fast path
+        return None                     # no host stats → no static dense-key proof
 
     # -- materialization ------------------------------------------------------
     def _out_internal(self, b: ColumnBatch) -> List[str]:

@@ -2,8 +2,8 @@
 
 Expressions are *resolved* AST trees — every ``Col`` node's ``name`` is an
 internal column key of the working batch (resolution happens in the planner).
-Evaluation is pure ``jnp`` over whole columns: one fused elementwise pass on
-the VPU under jit, no per-row interpretation (the reference has no expression
+Evaluation is pure ``jnp`` over whole columns: one fused elementwise pass
+under jit, no per-row interpretation (the reference has no expression
 engine at all — its WHERE support is a commented-out stub, ``select.fut:18``).
 
 Semantics:
@@ -104,7 +104,7 @@ def eval_expr(expr, columns: Dict[str, Array], capacity: int,
         raise ExprError(f"Unknown unary op {expr.op!r}")
     if isinstance(expr, Case):
         # First true WHEN wins: fold jnp.where back-to-front over a chain of
-        # selects (one fused VPU pass). Missing ELSE yields 0 (no NULLs).
+        # selects (one fused elementwise pass). Missing ELSE yields 0 (no NULLs).
         results = [eval_expr(r, columns, capacity, config)
                    for _c, r in expr.whens]
         out = (eval_expr(expr.else_, columns, capacity, config)

@@ -2,7 +2,7 @@
 
 Replaces the reference's flat index-dict "IR" (``parse.py:58,90``) with a real
 planner: name resolution against the table registry, aggregate extraction and
-rewriting, and lowering to a pipeline of the TPU operators in
+rewriting, and lowering to a pipeline of the device operators in
 ``harkdb_tpu.ops``. Error contracts preserved verbatim from the reference:
 
   * unknown table        → "{name} is not in tables"                (parse.py:33)
@@ -38,7 +38,7 @@ import numpy as np
 from harkdb_tpu.columnar.batch import ColumnBatch
 from harkdb_tpu.columnar.table import Table
 from harkdb_tpu.config import EngineConfig, DEFAULT_CONFIG
-from harkdb_tpu.kernels.matmul_agg import KEY_TILE, MAX_KEY_SPAN
+from harkdb_tpu.ops.dense_agg import MAX_KEY_SPAN, dense_groupby_batch
 from harkdb_tpu.ops.groupby import groupby_batch
 from harkdb_tpu.ops.join import compute_join_ranges, join_batches
 from harkdb_tpu.plan.aggregates import apply_post_computes
@@ -91,11 +91,6 @@ def _null_extreme_sub(a, isnull, d: bool, nu):
         info = jnp.iinfo(a.dtype)
         ext = jnp.array(info.max if use_max else info.min, a.dtype)
     return jnp.where(isnull, ext, a)
-
-
-def _pad_span(span: int) -> int:
-    """Round a key span up to the MXU kernel's key-tile granule."""
-    return -(-span // KEY_TILE) * KEY_TILE
 
 
 def _expr_name(expr) -> str:
@@ -344,7 +339,7 @@ def _substitute_aggs(expr, agg_map):
 
 @functools.lru_cache(maxsize=256)
 def _jit_ranges(l_keys: tuple, r_keys: tuple, l_names: tuple, r_names: tuple,
-                use_pallas: bool = True, l_flag_names: tuple = (),
+                l_flag_names: tuple = (),
                 r_flag_names: tuple = (), need_full: bool = False):
     """Jitted count phase: one concat sort produces the join ranges AND both
     totals; the same device arrays then feed materialization (no recompute).
@@ -370,7 +365,6 @@ def _jit_ranges(l_keys: tuple, r_keys: tuple, l_names: tuple, r_names: tuple,
             lk, left.n_valid, rk, right.n_valid,
             l_cols=[left.column(s) for s in l_names],
             r_cols=[right.column(s) for s in r_names],
-            use_pallas=use_pallas,
             l_null=null_of(left, l_flag_names),
             r_null=null_of(right, r_flag_names),
             need_full=need_full,
@@ -381,12 +375,12 @@ def _jit_ranges(l_keys: tuple, r_keys: tuple, l_names: tuple, r_names: tuple,
 @functools.lru_cache(maxsize=256)
 def _jit_join(capacity: int,
               l_out: tuple, r_out: tuple, kind: str = "inner",
-              use_pallas: bool = True, matched_out: str | None = None,
+              matched_out: str | None = None,
               l_matched_out: str | None = None):
     def f(ranges) -> ColumnBatch:
         return join_batches(
             None, None, None, None, capacity, dict(l_out), dict(r_out),
-            kind=kind, ranges=ranges, use_pallas=use_pallas,
+            kind=kind, ranges=ranges,
             matched_out=matched_out, l_matched_out=l_matched_out,
         )
     return jax.jit(f)
@@ -1110,7 +1104,7 @@ class QueryPlan(StringLowering, NullSemantics):
             self._nullable_flags_in(e) for e, _n in self.final_items
         ]
 
-        # MXU fast path (kernels/matmul_agg.py): single int key with a small
+        # Dense-key path (ops/dense_agg.py): single int key with a small
         # span, aggregates all sum/count over direct int columns. Eligibility
         # is STRUCTURAL at plan time (fast_candidate); the key range comes
         # from host table stats when the key is a no-join base column (free,
@@ -1122,12 +1116,11 @@ class QueryPlan(StringLowering, NullSemantics):
         self._probed_fast = None        # execute-time probe cache
         self.last_fast_span = None      # introspection: span used, or None
         if (
-            self.config.use_pallas
-            and self.grouped
+            self.grouped
             and not self.group_key_exprs
             and len(self.group_keys) == 1
             # a nullable key grows exec keys with its matched flag — the
-            # one-hot kernel is single-key, and NULL-as-its-own-group needs
+            # dense path is single-key, and NULL-as-its-own-group needs
             # the general path
             and len(self.group_exec_keys) == 1
             and self.agg_specs
@@ -1165,9 +1158,7 @@ class QueryPlan(StringLowering, NullSemantics):
                     if rng is not None and not compat_blocks:
                         span = rng[1] - rng[0] + 1
                         if span <= MAX_KEY_SPAN:
-                            self.fast_agg = (
-                                key_internal, rng[0], _pad_span(span)
-                            )
+                            self.fast_agg = (key_internal, rng[0], span)
 
         # ---- projection pushdown ---------------------------------------------
         # Only load columns the query actually touches (select/where/having/
@@ -1212,7 +1203,7 @@ class QueryPlan(StringLowering, NullSemantics):
             b: jax.jit(functools.partial(self._apply_pushdown, b))
             for b in self.pushdown
         }
-        # Phase-B pipelines are jit-cached per MXU-fast-path span (None =
+        # Phase-B pipelines are jit-cached per dense-key span (None =
         # general sort path); the probe jit is built lazily.
         self._phase_b_cache: Dict[object, object] = {}
         self._probe_jit = None
@@ -1628,7 +1619,7 @@ class QueryPlan(StringLowering, NullSemantics):
         """Jitted slice-to-capacity + post-aggregation tail. Grouped outputs
         usually have far fewer rows than the input capacity; bucketing the
         tail's capacity down makes its ORDER BY sort the groups, not the
-        padding (16M-capacity sort ~70 ms vs ~5 ms at 2M on v5e)."""
+        padding."""
         key = ("tail", cap2)
         f = self._phase_b_cache.get(key)
         if f is None:
@@ -1642,7 +1633,7 @@ class QueryPlan(StringLowering, NullSemantics):
     def _probe_impl(self, batch: ColumnBatch):
         """On-device (min, max, any) of the group key over live rows passing
         the WHERE residual — the execute-time range check that admits
-        post-join / post-WHERE keys to the MXU fast path."""
+        post-join / post-WHERE keys to the dense-key path."""
         cap = batch.capacity
         live = jnp.arange(cap, dtype=jnp.int32) < batch.n_valid
         if self.where_residual is not None:
@@ -1678,7 +1669,7 @@ class QueryPlan(StringLowering, NullSemantics):
             ):
                 span = kmax - kmin + 1
                 if span <= MAX_KEY_SPAN:
-                    fast = (_pad_span(span), kmin)
+                    fast = (span, kmin)
             self._probed_fast = fast
         return self._probed_fast
 
@@ -1687,7 +1678,7 @@ class QueryPlan(StringLowering, NullSemantics):
             self.pushdown[binding], batch.columns, batch.capacity,
             self.config,
         ).astype(jnp.bool_)
-        return compact_batch(batch, mask, self.config.use_pallas)
+        return compact_batch(batch, mask)
 
     # -- execution ------------------------------------------------------------
     def execute(self, tables: Dict[str, Table]) -> ColumnBatch:
@@ -1709,8 +1700,7 @@ class QueryPlan(StringLowering, NullSemantics):
                 # table is the preserved side; the accumulated relation's
                 # columns null-fill on its unmatched rows (#lmatched flag).
                 ranges = _jit_ranges(
-                    rks, lks, r_names, l_names, self.config.use_pallas,
-                    (), kflags,
+                    rks, lks, r_names, l_names, (), kflags,
                 )(right, batch)
                 _check_join_total(ranges)
                 total = int(ranges.total_left)
@@ -1718,13 +1708,11 @@ class QueryPlan(StringLowering, NullSemantics):
                 l_out = tuple((n, n) for n in r_names)
                 r_out = tuple((n, n) for n in l_names)
                 batch = _jit_join(
-                    cap, l_out, r_out, "left", self.config.use_pallas,
-                    f"#lmatched.{rb}",
+                    cap, l_out, r_out, "left", f"#lmatched.{rb}",
                 )(ranges)
                 continue
             ranges = _jit_ranges(
-                lks, rks, l_names, r_names, self.config.use_pallas,
-                kflags, (), kind == "full",
+                lks, rks, l_names, r_names, kflags, (), kind == "full",
             )(batch, right)
             _check_join_total(ranges)
             total = int(
@@ -1738,11 +1726,10 @@ class QueryPlan(StringLowering, NullSemantics):
             batch = _jit_join(
                 cap, l_out, r_out,
                 "inner" if kind == "cross" else kind,
-                self.config.use_pallas,
                 self.null_flags.get(rb),
                 f"#lmatched.{rb}" if kind == "full" else None,
             )(ranges)
-        # Phase B: compiled pipeline (jit keyed by MXU fast-path span).
+        # Phase B: compiled pipeline (jit keyed by the dense-key span).
         fast_span, key_min = self._resolve_fast(batch)
         self.last_fast_span = fast_span
         # Capacity shrink after filter pushdown (single-table): phase B's
@@ -1773,7 +1760,7 @@ class QueryPlan(StringLowering, NullSemantics):
                 batch = f(batch)
         if self.grouped and (self.order_items or self.distinct):
             # Split at the aggregate: sync n_groups, bucket the tail's
-            # capacity down (one ~RTT round-trip buys the tail a sort over
+            # capacity down (one host read-back buys the tail a sort over
             # the groups instead of the full input capacity).
             g = self._phase_b_for(fast_span, stop_after_group=True)(
                 batch, jnp.int32(key_min)
@@ -1848,42 +1835,21 @@ class QueryPlan(StringLowering, NullSemantics):
                 and (self.grouped or not self.window_specs)
             )
             if not absorbed:
-                batch = compact_batch(batch, where_mask, self.config.use_pallas)
+                batch = compact_batch(batch, where_mask)
                 where_mask = None
                 if self.config.debug_checks:
                     from harkdb_tpu.utils.checks import debug_validate
 
                     batch = debug_validate(batch, "after WHERE")
 
-        # GROUP BY + aggregates — MXU one-hot matmul fast path when the
-        # gate admits it (small dense int key, sum/count only; span either
+        # GROUP BY + aggregates — dense-key scatter-add path when the gate
+        # admits it (small int key span, int sum/count only; span either
         # proven from table stats or probed on device — _resolve_fast).
         if self.grouped and fast_span is not None:
-            import jax as _jax
-
-            from harkdb_tpu.kernels.matmul_agg import onehot_groupby_sums
-
-            key_name, span = self.fast_candidate, fast_span
-            sum_srcs = list(dict.fromkeys(
-                src for src, op, _ in self.agg_specs if op == "sum"
-            ))
-            counts_k, sums_k, keys_axis = onehot_groupby_sums(
-                batch.column(key_name),
-                [batch.column(s) for s in sum_srcs],
-                batch.n_valid,
-                key_min,
-                span,
-                mask=where_mask,
-                interpret=_jax.default_backend() != "tpu",
+            batch = dense_groupby_batch(
+                batch.columns, self.fast_candidate, self.agg_specs,
+                batch.n_valid, key_min, fast_span, mask=where_mask,
             )
-            sums_by_src = dict(zip(sum_srcs, sums_k))
-            gcols = {key_name: keys_axis}
-            for src, op, out_name in self.agg_specs:
-                gcols[out_name] = (
-                    counts_k if op == "count" else sums_by_src[src]
-                )
-            dense = ColumnBatch(gcols, jnp.int32(span))
-            batch = compact_batch(dense, counts_k > 0, self.config.use_pallas)
             if stop_after_group:
                 return batch
             return self.run_tail(batch)
@@ -1915,7 +1881,6 @@ class QueryPlan(StringLowering, NullSemantics):
             batch = groupby_batch(
                 work, keys, self.agg_specs, mask=where_mask,
                 u32_key_order=self.config.compat_u32_key_order,
-                use_pallas=self.config.use_pallas,
             )
             where_mask = None
             if not self.group_keys:
@@ -1987,7 +1952,7 @@ class QueryPlan(StringLowering, NullSemantics):
             ).astype(jnp.bool_)
             filter_mask = hmask if filter_mask is None else filter_mask & hmask
             if not (self.distinct or self.order_items):
-                batch = compact_batch(batch, filter_mask, self.config.use_pallas)
+                batch = compact_batch(batch, filter_mask)
                 filter_mask = None
 
         # Windows over GROUPED output (standard SQL order: after GROUP BY
@@ -1996,7 +1961,7 @@ class QueryPlan(StringLowering, NullSemantics):
         if self.grouped and self.window_specs:
             if filter_mask is not None:
                 batch = compact_batch(
-                    batch, filter_mask, self.config.use_pallas
+                    batch, filter_mask,
                 )
                 filter_mask = None
             # run_tail always executes on one device (single-chip path or
@@ -2047,12 +2012,11 @@ class QueryPlan(StringLowering, NullSemantics):
             keep = ((idx2 == 0) | changed) & (idx2 < n_live)
             out = compact_batch(
                 ColumnBatch(dict(zip(names, sorted_all)), n_live), keep,
-                self.config.use_pallas,
             )
 
         # ORDER BY + small LIMIT: top-k selection instead of the full
-        # payload sort. `lax.top_k` scans the key once (~10 ms at 16M vs
-        # ~80 ms for the sort) and breaks ties by lowest index — exactly
+        # payload sort. `lax.top_k` scans the key once instead of sorting
+        # every column, and breaks ties by lowest index — exactly
         # the stable sort's tie order, so results are bit-identical. The
         # monotone integer view (dist_ops._route_order_view) handles
         # descending (bitwise NOT) and float32 (IEEE total-order trick);
@@ -2087,7 +2051,7 @@ class QueryPlan(StringLowering, NullSemantics):
                 tmp = compact_batch(
                     ColumnBatch(dict(out.columns, **{"#tkkey": key}),
                                 out.n_valid),
-                    filter_mask, self.config.use_pallas,
+                    filter_mask,
                 )
                 key = tmp.columns["#tkkey"]
                 out = ColumnBatch(
@@ -2110,8 +2074,7 @@ class QueryPlan(StringLowering, NullSemantics):
             )
         elif self.order_items and order_presorted:
             if filter_mask is not None:
-                out = compact_batch(out, filter_mask,
-                                    self.config.use_pallas)
+                out = compact_batch(out, filter_mask)
                 filter_mask = None
         elif self.order_items:
             key_arrays = []
@@ -2141,15 +2104,15 @@ class QueryPlan(StringLowering, NullSemantics):
             )
             filter_mask = None
         elif filter_mask is not None:
-            out = compact_batch(out, filter_mask, self.config.use_pallas)
+            out = compact_batch(out, filter_mask)
             filter_mask = None
 
-        # OFFSET: drop the first k rows — one kernel/sort compaction pass
+        # OFFSET: drop the first k rows — one compaction pass
         # (rows must shift to the front to keep the packed-batch invariant).
         if self.offset:
             idx3 = jnp.arange(out.capacity, dtype=jnp.int32)
             out = compact_batch(
-                out, idx3 >= jnp.int32(self.offset), self.config.use_pallas
+                out, idx3 >= jnp.int32(self.offset),
             )
 
         # LIMIT

@@ -24,7 +24,7 @@ class UnionPlan:
     """UNION / UNION ALL of SELECT arms (no reference analog — its grammar
     is single-SELECT only, ``parse.py:27-33``).
 
-    Each arm plans independently (sharing the full planner: pushdown, MXU
+    Each arm plans independently (sharing the full planner: pushdown, dense-key
     gate, string lowering); the union itself is a small eager tail over the
     arms' packed results — concatenate live rows, dedupe at every non-ALL
     junction (left-associative, standard SQL), then the trailing
@@ -137,7 +137,6 @@ class UnionPlan:
                 jnp.int32(n),
             ),
             keep,
-            self.config.use_pallas,
         )
         k = int(b.n_valid)
         return [b.columns[f"#u{j}"][:k] for j in range(len(cols))]
@@ -191,7 +190,7 @@ class UnionPlan:
             ColumnBatch(
                 {f"#u{j}": c for j, c in enumerate(scols)}, jnp.int32(n)
             ),
-            keep, self.config.use_pallas,
+            keep,
         )
         k = int(b.n_valid)
         return [b.columns[f"#u{j}"][:k] for j in range(len(cols))]
@@ -316,7 +315,7 @@ class UnionPlan:
         if self.offset:
             idx = jnp.arange(out.capacity, dtype=jnp.int32)
             out = compact_batch(
-                out, idx >= jnp.int32(self.offset), cfg.use_pallas
+                out, idx >= jnp.int32(self.offset),
             )
         if self.limit is not None:
             out = ColumnBatch(

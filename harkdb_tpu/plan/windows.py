@@ -2,13 +2,13 @@
 the reference grammar is single-SELECT projections/aggregates only,
 ``parse.py:42-90``).
 
-TPU-style evaluation (traced; jit-safe), one stable payload sort per
-distinct (PARTITION BY, ORDER BY) shape plus ONE shared restore sort:
+Traced, jit-safe evaluation: one stable payload sort per distinct
+(PARTITION BY, ORDER BY) shape plus ONE shared restore sort:
 
   * every shape's partition/order key arrays and argument columns are
     evaluated up front in original row order and ride the chain of sorts as
-    payload (extra sort operands cost ~5 ms each at 17M rows on v5e, vs
-    ~70 ms for a whole extra sort — BASELINE.md);
+    payload (an extra sort operand is assumed cheaper than a whole extra
+    sort; not measured on the H100);
   * shape k sorts from whatever order shape k-1 left the data in (its keys
     were carried), computes its outputs with position arithmetic and
     segmented scans in its own sorted order, and passes the outputs along
@@ -19,8 +19,8 @@ distinct (PARTITION BY, ORDER BY) shape plus ONE shared restore sort:
 W shapes therefore cost W+1 sorts, not 2W (round-3 verdict item 4 — the
 per-shape sort-back was the only avoidable sort in the window path).
 Per-function logic: row_number/rank/dense_rank via cummax-filled starts;
-running aggregates as inclusive segmented scans (the groupby's streaming
-Pallas segscan on TPU, the doubling scan elsewhere); the SQL default RANGE
+running aggregates as inclusive segmented scans (the doubling scan of
+``prims/segmented.py``); the SQL default RANGE
 frame (peers included) via a reversed take-first segmented scan that
 broadcasts each tie-run's last scanned value; lag/lead as ROWS-based
 shifts with a validity-isolated partition-id guard. No scatters or
@@ -78,9 +78,7 @@ def compute_windows(plan, batch: ColumnBatch,
     Distributed callers pass False (each shard's local order is restored
     by the executor's own distributed sort)."""
     from harkdb_tpu.ops.sort import _descending_transform
-    from harkdb_tpu.ops.groupby import (
-        _SEGSCAN_NAME, _neutral_py, _use_segscan,
-    )
+    from harkdb_tpu.ops.groupby import _neutral_py
     from harkdb_tpu.prims.segmented import doubling_segmented_scan
 
     cap = batch.capacity
@@ -133,8 +131,8 @@ def compute_windows(plan, batch: ColumnBatch,
         state["#tie"] = pos0
     if skip_shape is not None:
         # every batch column must end up in the final (shape-sorted)
-        # order — ride the chain as payload (~5 ms per 16M-row operand on
-        # v5e, vs the ~80 ms restore + ~80 ms ORDER BY sorts skipped)
+        # order — ride the chain as payload, which skips the restore and
+        # ORDER BY sorts
         for n in batch.names:
             state.setdefault(f"col:{n}", cols[n])
 
@@ -254,17 +252,6 @@ def compute_windows(plan, batch: ColumnBatch,
             return _plen_memo[0]
 
         def pscan(opname, x):
-            if _use_segscan(plan.config.use_pallas):
-                from harkdb_tpu.kernels.segscan import (
-                    flat_segscan, segscan_supported,
-                )
-
-                if segscan_supported(_SEGSCAN_NAME[opname], x.dtype):
-                    return flat_segscan(
-                        _SEGSCAN_NAME[opname], sid_p, [x],
-                        _neutral_py(opname, x.dtype),
-                        interpret=jax.default_backend() != "tpu",
-                    )[0]
             return doubling_segmented_scan(_SCAN[opname], sid_p, x)
 
         # ---- explicit ROWS frames ----------------------------------------

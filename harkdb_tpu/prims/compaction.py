@@ -1,15 +1,15 @@
 """Masked compaction — the primitive the reference left commented out.
 
 The reference stubs its WHERE filter (``select.fut:18``:
-``-- let rows_to_keep = filter f db``). On TPU under XLA's static shapes the
-idiomatic formulation is: predicate mask → exclusive prefix sum → scatter of
-surviving row *indices* → per-column gather. One scatter total regardless of
-column count; gathers stream at HBM bandwidth.
+``-- let rows_to_keep = filter f db``). Under XLA's static shapes the
+formulation is: predicate mask → exclusive prefix sum → scatter of surviving
+row *indices* → per-column gather, into arrays that keep their capacity,
+with the live count beside them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -47,85 +47,30 @@ def compact(values: Array, mask: Array, n_valid: Array | None = None,
 
 
 def compact_arrays(
-    arrays, mask: Array, n_valid: Array, use_pallas: bool | None = None,
-):
+    arrays: Sequence[Array], mask: Array, n_valid: Array,
+) -> Tuple[List[Array], Array]:
     """Pack rows of several equal-length arrays where ``mask`` holds.
 
-    Returns ``(packed_list, count)`` — the positional-list flavor of
-    :func:`compact_batch` for operator internals (e.g. groupby's
-    segment-end packing). Same path selection: log-shift Pallas kernel on
-    TPU, one payload-carrying stable sort elsewhere. Rows at index >= count
-    are unspecified on the kernel path and zero-suppressed by callers.
+    Returns ``(packed_list, count)``: the rows below ``n_valid`` that pass
+    ``mask``, in their original order, at the front of arrays of the input
+    length; rows at index >= count are 0. One cumsum + scatter of row
+    indices (:func:`compact_indices`), then one gather per array — measured
+    25-48x faster than a stable ``lax.sort`` carrying the arrays at 2^24
+    rows on an H100 (``chip_smoke.py --choices``).
     """
-    if use_pallas is None:
-        from harkdb_tpu.config import DEFAULT_CONFIG
-
-        use_pallas = DEFAULT_CONFIG.use_pallas
-    arrays = list(arrays)
-    if use_pallas and jax.default_backend() == "tpu":
-        from harkdb_tpu.kernels.compact import (
-            flat_compact, flat_compact_supported,
-        )
-
-        cols = {f"#{i}": a for i, a in enumerate(arrays)}
-        if flat_compact_supported(cols) and arrays[0].shape[0] > 0:
-            out, count = flat_compact(cols, mask, n_valid)
-            return [out[f"#{i}"] for i in range(len(arrays))], count
-    n = mask.shape[0]
-    idx = jnp.arange(n, dtype=jnp.int32)
-    mask = mask & (idx < n_valid)
-    count = jnp.sum(mask).astype(jnp.int32)
-    dropped = jnp.logical_not(mask).astype(jnp.int32)
-    out = jax.lax.sort([dropped] + arrays, num_keys=1, is_stable=True)
-    return list(out[1:]), count
+    indices, count = compact_indices(mask, n_valid)
+    return [a.at[indices].get(mode="fill", fill_value=0) for a in arrays], count
 
 
-def compact_batch(
-    batch: ColumnBatch, mask: Array, use_pallas: bool | None = None
-) -> ColumnBatch:
+def compact_batch(batch: ColumnBatch, mask: Array) -> ColumnBatch:
     """Filter a ColumnBatch by a boolean mask over its rows.
 
     Output keeps the input capacity (filter can only shrink); surviving rows
     are packed to the front in original order (stable — required for parity
-    with reference row-order preservation, SURVEY §3.3).
-
-    Two paths, selected at trace time:
-
-    * **TPU**: the log-shift Pallas streaming kernel
-      (``kernels/compact.py``) — measured 2.9 ms for 16M rows x 2 int32
-      columns on v5e (5.7 Grows/s), ~22x the sort path, bit-identical
-      output in the live region (padding rows are unspecified, per the
-      engine convention).
-    * **fallback** (CPU tests / unsupported dtypes / ``use_pallas=False``):
-      ONE stable ``lax.sort`` on the inverted mask carrying all columns as
-      payload — measured ~3x cheaper on v5e than a scatter+gather per
-      column (extra sort operands are nearly free; each 16M-row gather
-      costs ~145 ms).
+    with reference row-order preservation, SURVEY §3.3); padding rows are 0.
     """
-    if use_pallas is None:
-        from harkdb_tpu.config import DEFAULT_CONFIG
-
-        use_pallas = DEFAULT_CONFIG.use_pallas
-    if use_pallas and jax.default_backend() == "tpu":
-        from harkdb_tpu.kernels.compact import (
-            flat_compact, flat_compact_supported,
-        )
-
-        if flat_compact_supported(batch.columns) and batch.capacity > 0:
-            cols, count = flat_compact(
-                batch.columns, mask, batch.n_valid
-            )
-            return ColumnBatch(cols, count)
-    n = mask.shape[0]
-    idx = jnp.arange(n, dtype=jnp.int32)
-    mask = mask & (idx < batch.n_valid)
-    count = jnp.sum(mask).astype(jnp.int32)
-    dropped = jnp.logical_not(mask).astype(jnp.int32)
     names = batch.names
-    operands = [dropped] + [batch.columns[c] for c in names]
-    out = jax.lax.sort(operands, num_keys=1, is_stable=True)
-    cols = {
-        name: jnp.where(idx < count, col, 0)
-        for name, col in zip(names, out[1:])
-    }
-    return ColumnBatch(cols, count)
+    cols, count = compact_arrays(
+        [batch.columns[c] for c in names], mask, batch.n_valid
+    )
+    return ColumnBatch(dict(zip(names, cols)), count)

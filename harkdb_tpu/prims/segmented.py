@@ -9,10 +9,10 @@ Same contracts as the reference's vendored diku-dk/segmented 0.3.1 library
   * ``segmented_iota``  — per-segment restart iota          (segmented.fut:58-60)
   * ``expand``          — irregular nested flattening       (segmented.fut:70-74)
 
-TPU-first implementation notes (measured on real v5e hardware): a generic
-``lax.associative_scan`` over (flag, value) pairs compiles pathologically and
-runs slowly, while ``cumsum``/``cummax``/scatter are sub-millisecond at 4M
-rows. So every hot path lowers to those:
+Implementation notes: a generic ``lax.associative_scan`` over (flag, value)
+pairs compiled pathologically slowly when this engine was first built, so
+every hot path lowers to ``cumsum``/``cummax``/scatter and elementwise
+passes instead (none of these costs is measured on the H100 yet):
 
   * segmented add-scan = global ``cumsum`` minus a per-segment base gathered
     via the segment-id (exact under int wraparound arithmetic);
@@ -52,11 +52,9 @@ def doubling_segmented_scan(op: Callable, sid: Array, values: Array) -> Array:
     contiguous (the caller has sorted by key). ``values`` is ``(n,)`` or
     ``(n, k)`` — columns scan independently under the shared ``sid``.
 
-    ceil(log2 n) fused elementwise passes; on TPU each pass streams at HBM
-    bandwidth, so the whole scan costs a few cumsum-equivalents — measured
-    ~50x cheaper than a ``jax.ops.segment_*`` scatter-reduction at 16M rows,
-    and unlike ``lax.associative_scan`` over (flag, value) pairs it compiles
-    cleanly (see module docstring).
+    ceil(log2 n) elementwise passes, each streaming the columns through
+    device memory once; unlike ``lax.associative_scan`` over (flag, value)
+    pairs it compiles cleanly (see module docstring).
     """
     n = values.shape[0]
     out = values
@@ -221,8 +219,7 @@ def segmented_iota(flags: Array) -> Array:
 
     ``idx - cummax(flagged positions)``: segment-start positions are
     monotone, so a running max forward-fills each row's segment start — one
-    cummax (~18 ms at 16M on v5e) instead of the add-scan's scatter
-    (~145 ms). Rows before the first flag restart at 0 (position 0 acts as
+    cummax instead of the add-scan's scatter. Rows before the first flag restart at 0 (position 0 acts as
     an implicit start, matching the reference contract).
     """
     n = flags.shape[0]

@@ -11,9 +11,6 @@ Checked invariants:
   * 0 <= n_valid <= capacity;
   * all columns share one capacity;
   * (optional) padding rows are zeroed where the op promises it.
-
-Pallas kernels additionally run under interpret mode in the CPU test suite
-(tests/test_kernels.py), which bounds-checks every ref access.
 """
 
 from __future__ import annotations

@@ -245,89 +245,3 @@ class TestJoin:
 def _keys(k, capacity=None):
     b = ColumnBatch.from_numpy({"k": k}, capacity)
     return b.column("k"), b.n_valid
-
-
-class TestJoinKernelExpandPath:
-    """The TPU materialization path (expand kernel + thin gathers) must be
-    bit-identical to the XLA fallback path. Forced via the module test hook,
-    kernels run in interpret mode on CPU."""
-
-    def _both_paths(self, fn):
-        import harkdb_tpu.ops.join as J
-
-        try:
-            J._FORCE_KERNEL_EXPAND = False
-            ref = fn()
-            J._FORCE_KERNEL_EXPAND = True
-            got = fn()
-        finally:
-            J._FORCE_KERNEL_EXPAND = None
-        return ref, got
-
-    @pytest.mark.parametrize("kind", ["inner", "left"])
-    def test_join_indices_paths_match(self, rng, kind):
-        from harkdb_tpu.ops.join import join_indices
-
-        nl, nr = 3000, 500
-        lk = jnp.asarray(rng.integers(0, 400, nl).astype(np.int32))
-        rk = jnp.asarray(rng.integers(0, 400, nr).astype(np.int32))
-
-        def run():
-            return join_indices(
-                lk, jnp.int32(2500), rk, jnp.int32(450), 1 << 15, kind
-            )
-
-        (l0, r0, m0, t0), (l1, r1, m1, t1) = self._both_paths(run)
-        assert int(t0) == int(t1)
-        live = np.arange(1 << 15) < int(t0)
-        np.testing.assert_array_equal(np.asarray(l0)[live],
-                                      np.asarray(l1)[live])
-        np.testing.assert_array_equal(np.asarray(r0)[live],
-                                      np.asarray(r1)[live])
-        np.testing.assert_array_equal(np.asarray(m0)[live],
-                                      np.asarray(m1)[live])
-
-    @pytest.mark.parametrize("kind", ["inner", "left"])
-    def test_join_batches_paths_match(self, rng, kind):
-        from harkdb_tpu.columnar.batch import ColumnBatch
-        from harkdb_tpu.ops.join import join_batches
-
-        nl, nr = 2000, 300
-        left = ColumnBatch({
-            "k": jnp.asarray(rng.integers(0, 150, nl).astype(np.int32)),
-            "a": jnp.asarray(rng.integers(0, 10**6, nl).astype(np.int32)),
-        }, jnp.int32(1900))
-        right = ColumnBatch({
-            "j": jnp.asarray(rng.integers(0, 150, nr).astype(np.int32)),
-            "b": jnp.asarray(rng.integers(0, 10**6, nr).astype(np.int32)),
-        }, jnp.int32(280))
-
-        def run():
-            out = join_batches(left, right, "k", "j", 1 << 15, kind=kind)
-            n = int(out.n_valid)
-            return {c: np.asarray(out.columns[c])[:n] for c in out.names}
-
-        ref, got = self._both_paths(run)
-        for c in ref:
-            np.testing.assert_array_equal(ref[c], got[c], err_msg=c)
-
-    def test_empty_and_tiny(self, rng):
-        from harkdb_tpu.ops.join import join_indices
-        import harkdb_tpu.ops.join as J
-
-        lk = jnp.asarray(np.array([5, 7, 9], np.int32))
-        rk = jnp.asarray(np.array([7], np.int32))
-        try:
-            J._FORCE_KERNEL_EXPAND = True
-            l, r, m, t = join_indices(
-                lk, jnp.int32(3), rk, jnp.int32(1), 128, "inner"
-            )
-            assert int(t) == 1
-            assert int(np.asarray(l)[0]) == 1 and int(np.asarray(r)[0]) == 0
-            # fully empty
-            _, _, _, t0 = join_indices(
-                lk, jnp.int32(0), rk, jnp.int32(0), 128, "inner"
-            )
-            assert int(t0) == 0
-        finally:
-            J._FORCE_KERNEL_EXPAND = None

@@ -7,7 +7,7 @@ mesh — (a) the exchange alone, (b) a data-independent compute chain alone,
 (c) both in one body with no data dependence between them. c ≈ max(a, b)
 means the scheduler overlaps them; c ≈ a + b means they serialize. CPU
 collectives are memcpy-class, so this probes XLA's SCHEDULING decision, not
-ICI bandwidth — stated as such in BASELINE.md.
+interconnect bandwidth.
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python tools/overlap_probe.py
